@@ -1,6 +1,7 @@
 """Emitter-type coverage: sphere and quad emitters (cbox's light is triangles)
-through the oracle, the XLA integrator, and the megakernel; plus the gather
-fallback for emitter counts beyond the unroll limit."""
+through the oracle and the XLA integrator's two BVH walkers (trace rows and
+the direct threaded walk); plus the gather fallback for emitter counts
+beyond the unroll limit."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,7 @@ pytestmark = pytest.mark.quick
 
 
 def _scene_with(emitter_kind):
-    from hijiki_tpu.scene.model import (
+    from hijiki.scene.model import (
         Camera, Diffuse, Emissive, Quad, Scene, Sphere
     )
 
@@ -30,12 +31,11 @@ def _scene_with(emitter_kind):
 def test_emitter_kinds_all_backends(kind):
     import jax.numpy as jnp
 
-    from hijiki_tpu.ops.camera import camera_rays
-    from hijiki_tpu.ops.integrate import integrate
-    from hijiki_tpu.ops.oracle import integrate_ray_oracle
-    from hijiki_tpu.ops.pallas_megakernel import render_tiles
-    from hijiki_tpu.ops.rng import seed_rng
-    from hijiki_tpu.scene.compile import compile_scene, scene_to_device
+    from hijiki.ops.camera import camera_rays
+    from hijiki.ops.integrate import integrate
+    from hijiki.ops.oracle import integrate_ray_oracle
+    from hijiki.ops.rng import seed_rng
+    from hijiki.scene.compile import compile_scene, scene_to_device
 
     s = _scene_with(kind)
     cs_host = compile_scene(s)
@@ -54,10 +54,9 @@ def test_emitter_kinds_all_backends(kind):
     out = integrate(cs, o, d, tmin, tmax, seed_rng(seeds), max_bounces=16, traversal="rows")
     assert float(jnp.mean(out.total)) > 0.002, "emitter contributes light"
 
-    # megakernel agrees (baked emitter branch for this kind)
-    total, _, _, state = render_tiles(
-        cs, px, py, seeds, width=W, height=H, max_bounces=16, interpret=True
-    )
+    # the direct threaded-BVH walk agrees with the trace-row walk
+    alt = integrate(cs, o, d, tmin, tmax, seed_rng(seeds), max_bounces=16, traversal="bvh")
+    total, state = alt.total, alt.state
     same = np.asarray(state) == np.asarray(out.state)
     assert same.mean() >= 0.995
     # occlusion/backface gates consume no RNG, so a grazing shadow ray can
@@ -82,10 +81,10 @@ def test_many_emitters_gather_fallback():
     """>8 emitters: sample_emitter's gather path (vs the static unroll)."""
     import jax.numpy as jnp
 
-    from hijiki_tpu.ops.emitter import sample_emitter, _UNROLL_EMITTERS
-    from hijiki_tpu.ops.rng import seed_rng
-    from hijiki_tpu.scene.compile import compile_scene, scene_to_device
-    from hijiki_tpu.scene.model import Camera, Diffuse, Emissive, Quad, Scene, Sphere
+    from hijiki.ops.emitter import sample_emitter, _UNROLL_EMITTERS
+    from hijiki.ops.rng import seed_rng
+    from hijiki.scene.compile import compile_scene, scene_to_device
+    from hijiki.scene.model import Camera, Diffuse, Emissive, Quad, Scene, Sphere
 
     s = Scene(camera=Camera.cbox_default())
     white = s.add_material(Diffuse((0.5, 0.5, 0.5)))
@@ -114,7 +113,7 @@ def test_pick_thresholds_match_reference_scan():
     back to emitter 0)."""
     import numpy as np
 
-    from hijiki_tpu.scene.compile import emitter_pick_thresholds
+    from hijiki.scene.compile import emitter_pick_thresholds
 
     def reference_pick(u, pdf):
         r = np.float32(u)

@@ -27,7 +27,7 @@ import pytest
 
 
 def _furnace_scene(sphere_material, L=1.0):
-    from hijiki_tpu.scene.model import (
+    from hijiki.scene.model import (
         Camera,
         Emissive,
         Quad,
@@ -62,8 +62,8 @@ def _furnace_scene(sphere_material, L=1.0):
 
 
 def _render_center(scene, spp, seed=11):
-    from hijiki_tpu.render.renderer import RenderConfig, Renderer
-    from hijiki_tpu.scene.compile import compile_scene, scene_to_device
+    from hijiki.render.renderer import RenderConfig, Renderer
+    from hijiki.scene.compile import compile_scene, scene_to_device
 
     cs = scene_to_device(compile_scene(scene))
     cfg = RenderConfig(
@@ -82,7 +82,7 @@ def _render_center(scene, spp, seed=11):
 
 
 def test_furnace_diffuse_half_albedo():
-    from hijiki_tpu.scene.model import Diffuse
+    from hijiki.scene.model import Diffuse
 
     c, w = _render_center(_furnace_scene(Diffuse((0.5, 0.5, 0.5))), spp=32)
     # walls are noise-free: the camera ray hits the emitter discretely
@@ -92,7 +92,7 @@ def test_furnace_diffuse_half_albedo():
 
 
 def test_furnace_mirror_unit_radiance():
-    from hijiki_tpu.scene.model import Mirror
+    from hijiki.scene.model import Mirror
 
     c, w = _render_center(_furnace_scene(Mirror()), spp=4)
     np.testing.assert_allclose(w, 1.0, atol=1e-5)
@@ -101,7 +101,7 @@ def test_furnace_mirror_unit_radiance():
 
 
 def test_furnace_dielectric_energy_conservation():
-    from hijiki_tpu.scene.model import Dielectric
+    from hijiki.scene.model import Dielectric
 
     c, w = _render_center(_furnace_scene(Dielectric.clear(1.5)), spp=8)
     np.testing.assert_allclose(w, 1.0, atol=1e-5)

@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hijiki_tpu.ops.camera import camera_rays
-from hijiki_tpu.ops.integrate import integrate
-from hijiki_tpu.ops.oracle import integrate_ray_oracle
-from hijiki_tpu.ops.rng import seed_rng
-from hijiki_tpu.scene.compile import compile_scene, scene_to_device
-from hijiki_tpu.scene.model import (
+from hijiki.ops.camera import camera_rays
+from hijiki.ops.integrate import integrate
+from hijiki.ops.oracle import integrate_ray_oracle
+from hijiki.ops.rng import seed_rng
+from hijiki.scene.compile import compile_scene, scene_to_device
+from hijiki.scene.model import (
     Camera,
     Dielectric,
     Diffuse,
@@ -138,47 +138,11 @@ def test_random_scene_matches_oracle(scene_seed, use_bvh):
         )
 
 
-def test_random_scene_megakernel_matches_integrator():
-    """The Pallas megakernel (interpret mode) on a random mixed scene —
-    random analytic bake (spheres/quads incl. a sphere emitter) + triangle
-    trace rows — must consume the XLA integrator's exact RNG stream and
-    match its radiance. cbox-only coverage lives in test_megakernel.py."""
-    import jax.numpy as jnp
-
-    from hijiki_tpu.ops.pallas_megakernel import render_tiles
-    from hijiki_tpu.ops.rng import seed_rng
-
-    scene = random_scene(77)
-    cs = scene_to_device(compile_scene(scene))
-    W = H = 32
-    N = W * H
-    y, x = np.mgrid[0:H, 0:W]
-    px = jnp.asarray((x + 0.37).ravel().astype(np.float32))
-    py = jnp.asarray((y + 0.61).ravel().astype(np.float32))
-    seeds = jnp.asarray((np.arange(N) * 2654435761 % (1 << 32)).astype(np.uint32))
-    total, normal, depth, state = render_tiles(
-        cs, px, py, seeds, width=W, height=H, max_bounces=16, interpret=True
-    )
-    pxy = jnp.stack([px, py], -1)
-    o, d, tmin, tmax = camera_rays(
-        cs.cam_position, cs.cam_rotation, cs.cam_fov, pxy,
-        jnp.asarray([W, H], jnp.float32),
-    )
-    out = integrate(
-        cs, o, d, tmin, tmax, seed_rng(seeds), max_bounces=16, traversal="rows"
-    )
-    np.testing.assert_array_equal(np.asarray(state), np.asarray(out.state))
-    np.testing.assert_allclose(
-        np.asarray(total), np.asarray(out.total), rtol=2e-3, atol=2e-3
-    )
-    np.testing.assert_allclose(np.asarray(depth), np.asarray(out.depth), rtol=1e-4)
-
-
 def test_random_scene_wavefront_matches_sync():
-    """Third production driver on a random scene: the regenerating wavefront
+    """Second production driver on a random scene: the regenerating wavefront
     pool must reproduce the sync driver's film (identical paths and RNG
     streams; only summation order / FMA fusion may differ)."""
-    from hijiki_tpu.render.renderer import RenderConfig, Renderer
+    from hijiki.render.renderer import RenderConfig, Renderer
 
     scene = random_scene(55)
     cs = compile_scene(scene)

@@ -2,23 +2,22 @@
 matching radiance on real cbox paths (diffuse, emissive, NEE, mirror,
 checkerboard, Russian roulette all exercised)."""
 
-import copy
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hijiki_tpu.ops.camera import camera_rays
-from hijiki_tpu.ops.integrate import integrate
-from hijiki_tpu.ops.oracle import integrate_ray_oracle
-from hijiki_tpu.ops.rng import seed_rng
-from hijiki_tpu.scene.compile import compile_scene, scene_to_device
-from hijiki_tpu.scene.obj import load_obj_scene
+from hijiki.ops.camera import camera_rays
+from hijiki.ops.integrate import integrate
+from hijiki.ops.oracle import integrate_ray_oracle
+from hijiki.ops.rng import seed_rng
+from hijiki.scene.cbox_mesh import CBOX_OBJ
+from hijiki.scene.compile import compile_scene, scene_to_device
+from hijiki.scene.obj import load_obj_scene
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    scene = load_obj_scene("/root/reference/scenes/cbox/cbox.obj")
+    scene = load_obj_scene(CBOX_OBJ)
     scene.put_cbox_spheres()
     cs_host = compile_scene(scene)
     return cs_host, scene_to_device(cs_host)
@@ -76,11 +75,11 @@ def test_integrator_matches_oracle(scenes, use_bvh):
 
 
 def test_dielectric_path_matches_oracle():
-    scene = load_obj_scene("/root/reference/scenes/cbox/cbox.obj")
+    scene = load_obj_scene(CBOX_OBJ)
     scene.put_cbox_spheres()
     scene.put_dielectric_sphere()  # third sphere: clear glass at cbox position
     # Move it so it doesn't coincide with the checkerboard sphere.
-    from hijiki_tpu.scene.model import Sphere
+    from hijiki.scene.model import Sphere
 
     shape, mat = scene.objects[-1]
     scene.objects[-1] = (Sphere((0.0, 0.35, 0.9), 0.3), mat)

@@ -4,14 +4,14 @@ framework's version of the reference's --use-bvh A/B cross-check)."""
 import jax.numpy as jnp
 import numpy as np
 
-from hijiki_tpu.ops.intersect import (
+from hijiki.ops.intersect import (
     intersect_brute,
     intersect_bvh,
     occluded_bvh,
     populate_intersection,
 )
-from hijiki_tpu.scene.compile import compile_scene, scene_to_device
-from hijiki_tpu.scene.model import Camera, Diffuse, Quad, Scene, Sphere, Triangle
+from hijiki.scene.compile import compile_scene, scene_to_device
+from hijiki.scene.model import Camera, Diffuse, Quad, Scene, Sphere, Triangle
 
 
 def _mini_scene():

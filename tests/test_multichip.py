@@ -1,4 +1,4 @@
-"""Multi-chip sharding on the virtual 8-device CPU mesh: the sharded render
+"""Multi-device sharding on the virtual 8-device CPU mesh: the sharded render
 must match the single-device render (same seeds, same estimate)."""
 
 import dataclasses
@@ -7,16 +7,17 @@ import jax
 import numpy as np
 import pytest
 
-from hijiki_tpu.parallel.multichip import MultiChipRenderer
-from hijiki_tpu.render.renderer import RenderConfig, Renderer
+from hijiki.parallel.multichip import MultiChipRenderer
+from hijiki.render.renderer import RenderConfig, Renderer
 
 
 @pytest.fixture(scope="module")
 def cbox_small():
-    from hijiki_tpu.scene.compile import compile_scene
-    from hijiki_tpu.scene.obj import load_obj_scene
+    from hijiki.scene.cbox_mesh import CBOX_OBJ
+    from hijiki.scene.compile import compile_scene
+    from hijiki.scene.obj import load_obj_scene
 
-    scene = load_obj_scene("/root/reference/scenes/cbox/cbox.obj")
+    scene = load_obj_scene(CBOX_OBJ)
     scene.put_cbox_spheres()
     return compile_scene(scene)
 
@@ -59,69 +60,11 @@ def test_multichip_nondivisible_blocks(cbox_small):
     )
 
 
-def test_mega_multichip_matches_single(cbox_small):
-    """Megakernel driver sharded as row bands over the mesh == single device
-    (pallas kernels in interpret mode on the CPU mesh)."""
-    import hijiki_tpu.ops.pallas_megakernel as mk
-    import hijiki_tpu.render.pallas_reconstruct as pr
-    from hijiki_tpu.parallel.multichip import MegaMultiChipRenderer
-
-    cfg = RenderConfig(
-        width=128, height=128, spp=1, block_size=64, seed=5,
-        driver="mega", max_bounces=8,
-    )
-    orig_rw, orig_rp = mk.render_waves, pr.reconstruct_pallas
-    try:
-        mk.render_waves = lambda *a, **k: orig_rw(*a, **{**k, "interpret": True})
-        pr.reconstruct_pallas = lambda *a, **k: orig_rp(*a, **{**k, "interpret": True})
-        single = Renderer(cbox_small, cfg)
-        single.render()
-    finally:
-        mk.render_waves, pr.reconstruct_pallas = orig_rw, orig_rp
-
-    multi = MegaMultiChipRenderer(cbox_small, cfg, num_devices=2, interpret=True)
-    m = multi.render()
-    assert m["wave_overflow"] == 0
-    np.testing.assert_allclose(
-        np.asarray(multi.film), np.asarray(single.film), rtol=1e-4, atol=1e-5
-    )
-
-
-def test_mega_multichip_overflow_settle(cbox_small):
-    """The overflow==0 invariant holds on the sharded mega path too: a
-    pathological phase_shrink that drops parked paths triggers the
-    full-capacity re-render, and the settled film equals a run whose
-    capacities never overflowed (round-3 review finding: the multichip
-    renderer used to record the drop as a metric and keep the biased
-    film)."""
-    import warnings
-
-    from hijiki_tpu.parallel.multichip import MegaMultiChipRenderer
-
-    # height 128 over 2 devices = 64-row bands (band must be a multiple of
-    # block_size, and block_size a multiple of 64)
-    base = dict(width=64, height=128, spp=2, block_size=64, seed=11,
-                driver="mega", max_bounces=24)
-    bad = RenderConfig(phase_shrink=(9999,), **base)
-    r = MegaMultiChipRenderer(cbox_small, bad, num_devices=2)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        r.render()
-    good = RenderConfig(phase_shrink=(1,) * 8, **base)
-    r2 = MegaMultiChipRenderer(cbox_small, good, num_devices=2)
-    r2.render()
-    if r.metrics["overflow_retried"]:
-        assert any("re-rendering at full capacity" in str(x.message) for x in w)
-    assert r.metrics["wave_overflow"] == 0
-    assert r2.metrics["overflow_retried"] == 0
-    np.testing.assert_array_equal(np.asarray(r.film), np.asarray(r2.film))
-
-
 def test_multihost_sweep_sharding_matches_single(cbox_small):
     """Simulated multi-host run (explicit host ids): the merged film of N
     host-strided partial renders must equal the single render bitwise — the
     sweep set is identical and film accumulation is plain addition."""
-    from hijiki_tpu.parallel.multihost import (
+    from hijiki.parallel.multihost import (
         MultiHostRenderer,
         host_sweeps,
         merge_films,
@@ -161,7 +104,7 @@ def test_multihost_checkpoint_resume(cbox_small, tmp_path):
     host's completed-sweep count instead of re-tracing (review finding)."""
     import dataclasses
 
-    from hijiki_tpu.parallel.multihost import MultiHostRenderer
+    from hijiki.parallel.multihost import MultiHostRenderer
 
     cfg = RenderConfig(
         width=64, height=64, spp=6, block_size=64, seed=3, max_bounces=4
@@ -188,7 +131,7 @@ def test_multihost_checkpoint_resume(cbox_small, tmp_path):
 
 def test_multichip_resumed_metrics_count_traced_sweeps(cbox_small):
     """After a mid-render resume, rays_per_second must count only the sweeps
-    traced in THIS render() call (the Renderer.render rule — VERDICT r1 #7),
+    traced in THIS render() call (the Renderer.render rule),
     not the full spp."""
     cfg = RenderConfig(width=128, height=64, spp=4, block_size=64, seed=3,
                        max_bounces=6)
@@ -200,23 +143,19 @@ def test_multichip_resumed_metrics_count_traced_sweeps(cbox_small):
     assert m["primary_rays"] == 128 * 64 * 1
 
 
-@pytest.mark.parametrize("cls_name", ["MultiHostMultiChipRenderer",
-                                      "MultiHostMegaRenderer"])
+@pytest.mark.parametrize("cls_name", ["MultiHostMultiChipRenderer"])
 def test_host_stride_times_chip_shard_matches_single(cbox_small, cls_name):
-    """The full pod topology (SURVEY §2.5): sweeps stride across simulated
+    """The two-level topology (SURVEY §2.5): sweeps stride across simulated
     hosts while each host shards its sweeps over a 2-device mesh. The merged
     film must equal the plain single-device render (identical per-sweep
     deltas; only film-add order differs)."""
-    import hijiki_tpu.parallel.multihost as mh
-    from hijiki_tpu.parallel.multihost import merge_films
-    from hijiki_tpu.render.renderer import RenderConfig, Renderer
+    import hijiki.parallel.multihost as mh
+    from hijiki.parallel.multihost import merge_films
+    from hijiki.render.renderer import RenderConfig, Renderer
 
     cls = getattr(mh, cls_name)
-    # mega row-band sharding needs (height / ndev) % block_size == 0
     cfg = dict(width=64, height=128, spp=3, block_size=64, seed=7,
                max_bounces=8)
-    if cls_name == "MultiHostMegaRenderer":
-        cfg["driver"] = "mega"
     films = []
     for h in range(2):
         r = cls(cbox_small, RenderConfig(**cfg), host_id=h, num_hosts=2,
@@ -232,34 +171,3 @@ def test_host_stride_times_chip_shard_matches_single(cbox_small, cls_name):
     # test_multichip_matches_single
     np.testing.assert_allclose(merged, np.asarray(ref.film),
                                rtol=1e-4, atol=2e-4)
-
-
-@pytest.mark.parametrize("ndev", [1, 2])
-def test_mega_sharded_compiled_trace(cbox_small, ndev):
-    """The COMPILED (non-interpret, real-TPU) sharded mega sweep must trace
-    to a jaxpr. Regression: with check_vma=True the resume-phase kernel's
-    bounce while_loop died at the carry type check — float carries enter
-    {V:d} (reads of sharded state refs) but body outputs come back
-    replicated because vma inference doesn't survive the traversal's
-    scratch/DMA ops (an upstream gap; make_sharded_mega_sweep documents the
-    check_vma=False decision). Tracing stops before Mosaic lowering, so this
-    pins the real-TPU multi-chip trace path on the CPU mesh."""
-    import jax.numpy as jnp
-    from jax.sharding import Mesh
-
-    from hijiki_tpu.parallel.multichip import make_sharded_mega_sweep
-
-    mesh = Mesh(np.array(jax.devices()[:ndev]), ("d",))
-    scene = jax.device_put(cbox_small)
-    fn = make_sharded_mega_sweep(
-        mesh, scene, width=64, height=128, block_size=64,
-        max_bounces=8, stddev=0.5, interpret=False,
-    )
-    H, W = 128, 64
-    jax.jit(fn).trace(
-        scene,
-        jnp.zeros(H * W, jnp.float32),
-        jnp.zeros(H * W, jnp.float32),
-        jnp.zeros(H * W, jnp.uint32),
-        jnp.zeros(2, jnp.float32),
-    )

@@ -4,8 +4,8 @@ builder, and build performance."""
 import numpy as np
 import pytest
 
-from hijiki_tpu.accel.bvh import build_bvh
-from hijiki_tpu.accel.native import build_bvh_native, load_library
+from hijiki.accel.bvh import build_bvh
+from hijiki.accel.native import build_bvh_native, load_library
 
 
 def _random_aabbs(rng, n):
@@ -55,14 +55,14 @@ def test_native_matches_numpy_traversal(native_available, cbox_scene):
 
     import jax.numpy as jnp
 
-    from hijiki_tpu.ops.intersect import intersect_rows
-    from hijiki_tpu.scene import compile as sc
-    from hijiki_tpu.scene.compile import compile_scene, scene_to_device
+    from hijiki.ops.intersect import intersect_rows
+    from hijiki.scene import compile as sc
+    from hijiki.scene.compile import compile_scene, scene_to_device
 
     scene = copy.deepcopy(cbox_scene)
     scene.put_cbox_spheres()
 
-    import hijiki_tpu.accel.bvh as bvh_mod
+    import hijiki.accel.bvh as bvh_mod
 
     orig = bvh_mod.build_bvh
     try:
@@ -113,7 +113,7 @@ def test_numpy_builder_subnormal_extent():
     the scale is float64 and bins are clipped."""
     import numpy as np
 
-    from hijiki_tpu.accel.bvh import build_bvh
+    from hijiki.accel.bvh import build_bvh
 
     eps = 2e-38  # below the float32 normal minimum (~1.18e-38)
     centers = np.array([[0, 0, 0], [eps, 0, 0], [2 * eps, 0, 0]], np.float64)

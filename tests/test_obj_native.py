@@ -5,9 +5,10 @@ files, including smoothing-group normal generation and negative indices."""
 import numpy as np
 import pytest
 
-from hijiki_tpu.scene.compile import compile_scene
-from hijiki_tpu.scene.obj import load_obj_scene
-from hijiki_tpu.scene.obj_native import load_library
+from hijiki.scene.cbox_mesh import CBOX_OBJ
+from hijiki.scene.compile import compile_scene
+from hijiki.scene.obj import load_obj_scene
+from hijiki.scene.obj_native import load_library
 
 
 pytestmark = pytest.mark.skipif(
@@ -35,10 +36,10 @@ def _both(path):
 
 
 def test_cbox_parity():
-    a, b = _both("/root/reference/scenes/cbox/cbox.obj")
+    a, b = _both(CBOX_OBJ)
     _assert_scene_equal(a, b)
     ca, cb = compile_scene(a), compile_scene(b)
-    np.testing.assert_array_equal(ca.trace_rows_mega, cb.trace_rows_mega)
+    np.testing.assert_array_equal(ca.trace_rows, cb.trace_rows)
     np.testing.assert_array_equal(ca.materials, cb.materials)
     np.testing.assert_array_equal(ca.emitter_cdf, cb.emitter_cdf)
 
@@ -153,8 +154,8 @@ def test_out_of_range_index_fails_loudly(tmp_path):
     wrapper returns None and load falls back to the raising path)."""
     import pytest
 
-    from hijiki_tpu.scene.obj import load_obj_scene
-    from hijiki_tpu.scene.obj_native import parse_obj_native
+    from hijiki.scene.obj import load_obj_scene
+    from hijiki.scene.obj_native import parse_obj_native
 
     (tmp_path / "m.mtl").write_text("newmtl white\nKd 0.8 0.8 0.8\n")
     for bad_face in ("f -5 -3 -2", "f 1 2 9"):
@@ -168,7 +169,7 @@ def test_out_of_range_index_fails_loudly(tmp_path):
             load_obj_scene(str(p), backend="python")
         # backend="native" with a WORKING parser must report a parse
         # failure, not "parser unavailable"
-        from hijiki_tpu.scene.obj_native import load_library
+        from hijiki.scene.obj_native import load_library
 
         if load_library() is not None:
             with pytest.raises(ValueError, match="parse failed"):

@@ -1,7 +1,7 @@
 """Native C++ oracle (ops/oracle_native) vs the numpy oracle: same per-path
 semantics, same RNG stream, equal-seed radiance agreement.
 
-The C++ twin exists because the MSE gate (BASELINE north star) needs
+The C++ twin exists because the parity gate (render/parity.py) needs
 thousands of oracle spp and the numpy oracle costs ~15-30 s per 64^2 sweep;
 its float math mirrors the numpy expression trees exactly except libm's
 1-ulp trig/exp rounding (sqrtf is bitwise), so equal-seed films agree at
@@ -10,16 +10,28 @@ its float math mirrors the numpy expression trees exactly except libm's
 import numpy as np
 import pytest
 
-from hijiki_tpu.ops.oracle_native import load_library, render_oracle_native
-from hijiki_tpu.render.blocks import BlockScheduler, per_pixel_seeds
+from hijiki.ops.oracle_native import load_library, render_oracle_native
+from hijiki.render.blocks import BlockScheduler, per_pixel_seeds
+from hijiki.scene.cbox_mesh import CBOX_OBJ
+
+
+def _oracle_mse():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools", "oracle_mse.py")
+    spec = importlib.util.spec_from_file_location("oracle_mse", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(scope="module")
 def compiled():
-    from hijiki_tpu.scene.compile import compile_scene
-    from hijiki_tpu.scene.obj import load_obj_scene
+    from hijiki.scene.compile import compile_scene
+    from hijiki.scene.obj import load_obj_scene
 
-    scene = load_obj_scene("/root/reference/scenes/cbox/cbox.obj")
+    scene = load_obj_scene(CBOX_OBJ)
     scene.put_cbox_spheres()
     return compile_scene(scene)
 
@@ -33,10 +45,7 @@ def native_lib():
 
 
 def test_native_matches_numpy_oracle(compiled, native_lib):
-    import sys
-
-    sys.path.insert(0, "/root/repo/tools")
-    import oracle_mse as om
+    om = _oracle_mse()
 
     cs = compiled
     fs = om.FastScene(cs)
@@ -75,12 +84,9 @@ def test_native_single_ray_matches_scalar_oracle(compiled, native_lib):
     """One specific camera ray through the original scalar oracle
     (ops/oracle.integrate_ray_oracle) — the slowest, most literal
     transcription — vs the native twin."""
-    import sys
+    om = _oracle_mse()
 
-    sys.path.insert(0, "/root/repo/tools")
-    import oracle_mse as om
-
-    from hijiki_tpu.ops.oracle import integrate_ray_oracle
+    from hijiki.ops.oracle import integrate_ray_oracle
 
     cs = compiled
     o, d = om.camera_ray(cs.camera_static, np.float32(8.5), np.float32(9.5), 16, 16)

@@ -12,7 +12,7 @@ import os
 
 import numpy as np
 
-from hijiki_tpu.utils.exr import read_exr, tonemap_srgb, write_exr, write_png
+from hijiki.utils.exr import read_exr, tonemap_srgb, write_exr, write_png
 import pytest
 
 
@@ -108,7 +108,7 @@ def test_terminal_preview_ansi():
 
     import numpy as np
 
-    from hijiki_tpu.utils.term_preview import TerminalPreview, render_ansi
+    from hijiki.utils.term_preview import TerminalPreview, render_ansi
 
     img = np.zeros((32, 48, 3), np.float32)
     img[:16] = [1.0, 0.0, 0.0]

@@ -4,7 +4,7 @@ shader/reconstruction.glsl (including block spill/OOB-center quirks)."""
 import numpy as np
 import jax.numpy as jnp
 
-from hijiki_tpu.render.reconstruct import normalize_film, reconstruct_sweep
+from hijiki.render.reconstruct import normalize_film, reconstruct_sweep
 import pytest
 
 

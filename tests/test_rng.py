@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hijiki_tpu.ops import rng
+from hijiki.ops import rng
 import pytest
 
 

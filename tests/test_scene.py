@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hijiki_tpu.scene.compile import compile_scene
-from hijiki_tpu.scene.model import (
+from hijiki.scene.compile import compile_scene
+from hijiki.scene.model import (
     Diffuse,
     Emissive,
     MATERIAL_TAG_SHIFT,
@@ -21,23 +21,24 @@ pytestmark = pytest.mark.quick
 
 
 def test_cbox_materials(cbox_scene):
-    # MTL order: floor, light, porcelain, wall_blue, wall_gray, wall_red
+    # MTL order: floor, ceiling, backWall, leftWall, rightWall, light, torus
     mats = cbox_scene.materials
-    assert len(mats) == 6
-    assert isinstance(mats[1], Emissive)
-    assert mats[1].power == (15.0, 15.0, 15.0)
-    assert isinstance(mats[0], Diffuse)
-    np.testing.assert_allclose(mats[0].color, (0.455928, 0.446495, 0.427629))
-    # wall_red Kd
-    np.testing.assert_allclose(mats[5].color, (0.63, 0.065, 0.05))
+    assert len(mats) == 7
+    assert isinstance(mats[5], Emissive)
+    assert mats[5].power == (15.0, 15.0, 15.0)
+    assert all(isinstance(m, Diffuse) for i, m in enumerate(mats) if i != 5)
+    np.testing.assert_allclose(mats[0].color, (0.725, 0.71, 0.68))
+    # leftWall (red) and rightWall (green) Kd
+    np.testing.assert_allclose(mats[3].color, (0.63, 0.065, 0.05))
+    np.testing.assert_allclose(mats[4].color, (0.14, 0.45, 0.091))
 
 
 def test_cbox_geometry(cbox_scene):
-    # 6320 tri faces + 6 quad faces fan-triangulated = 6332 triangles
+    # 6 quad faces fan-triangulated + a 96 x 33 torus = 12 + 6336 triangles
     tris, tri_mats = cbox_scene.triangles()
-    assert tris.shape == (6332, 3)
-    assert cbox_scene.positions.shape == (3668, 3)
-    assert cbox_scene.normals.shape == (3668, 3)
+    assert tris.shape == (6348, 3)
+    assert cbox_scene.positions.shape == (4 * 6 + 96 * 33, 3)
+    assert cbox_scene.normals.shape == (4 * 6 + 96 * 33, 3)
     cam = cbox_scene.camera
     np.testing.assert_allclose(cam.position, [0.0, 0.91, 5.41])
     assert abs(cam.fov - 27.7) < 1e-6
@@ -51,7 +52,7 @@ def test_compiled_handles_and_emitters(cbox_scene):
     scene = copy.deepcopy(cbox_scene)
     scene.put_cbox_spheres()
     cs = compile_scene(scene)
-    assert (cs.num_spheres, cs.num_quads, cs.num_triangles) == (2, 0, 6332)
+    assert (cs.num_spheres, cs.num_quads, cs.num_triangles) == (2, 0, 6348)
     # sphere materials come first in global shape order
     tags = np.asarray(cs.materials) >> MATERIAL_TAG_SHIFT
     assert tags[0] == TAG_MIRROR
@@ -104,11 +105,11 @@ def test_builtin_cornell_presets():
     import jax.numpy as jnp
     import numpy as np
 
-    from hijiki_tpu.ops.camera import camera_rays
-    from hijiki_tpu.ops.integrate import integrate
-    from hijiki_tpu.ops.rng import seed_rng
-    from hijiki_tpu.scene.compile import compile_scene, scene_to_device
-    from hijiki_tpu.scene.presets import PRESETS, load_preset
+    from hijiki.ops.camera import camera_rays
+    from hijiki.ops.integrate import integrate
+    from hijiki.ops.rng import seed_rng
+    from hijiki.scene.compile import compile_scene, scene_to_device
+    from hijiki.scene.presets import PRESETS, load_preset
 
     for name in PRESETS:
         cs = compile_scene(load_preset(name))
@@ -138,7 +139,7 @@ def test_bvh_transforms_preserve_invariants():
     subtrees' prims."""
     import numpy as np
 
-    from hijiki_tpu.accel.bvh import build_bvh, collapse_bvh, order_children_by_area
+    from hijiki.accel.bvh import build_bvh, collapse_bvh, order_children_by_area
 
     rng = np.random.default_rng(0)
     n = 500
@@ -181,7 +182,7 @@ def test_bvh_transforms_preserve_invariants():
 def test_obj_generated_normals(tmp_path):
     """OBJs without vn get generated normals: smooth (area-weighted) within a
     smoothing group, flat with smoothing off; files with vn are untouched."""
-    from hijiki_tpu.scene.obj import load_obj_scene
+    from hijiki.scene.obj import load_obj_scene
 
     (tmp_path / "m.mtl").write_text("newmtl white\nKd 0.8 0.8 0.8\n")
     # two triangles sharing edge (0,0,0)-(1,0,1): one in xz-plane (normal +y),

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hijiki_tpu.ops.intersect import (
+from hijiki.ops.intersect import (
     intersect_brute,
     intersect_bvh,
     intersect_rows,
     occluded_rows,
 )
-from hijiki_tpu.scene.compile import compile_scene, scene_to_device
+from hijiki.scene.compile import compile_scene, scene_to_device
 
 # fast per-commit gate tier (README: python -m pytest tests -m quick)
 pytestmark = pytest.mark.quick

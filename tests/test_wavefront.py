@@ -2,20 +2,19 @@
 integrator (same per-pixel seeds -> same paths, regardless of lane
 scheduling), across lane-pool sizes and with lane sorting."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 
-from hijiki_tpu.render.renderer import RenderConfig, Renderer
+from hijiki.render.renderer import RenderConfig, Renderer
+from hijiki.scene.cbox_mesh import CBOX_OBJ
 
 
 @pytest.fixture(scope="module")
 def cbox_small():
-    from hijiki_tpu.scene.compile import compile_scene
-    from hijiki_tpu.scene.obj import load_obj_scene
+    from hijiki.scene.compile import compile_scene
+    from hijiki.scene.obj import load_obj_scene
 
-    scene = load_obj_scene("/root/reference/scenes/cbox/cbox.obj")
+    scene = load_obj_scene(CBOX_OBJ)
     scene.put_cbox_spheres()
     return compile_scene(scene)
 

@@ -5,7 +5,7 @@ reference estimator bit-exactly, so any compiler-flag change must be proven
 value-identical before it is trusted. This renders the same N sweeps of the
 64x64 cbox oracle twice — default flags vs HIJIKI_ORACLE_CFLAGS candidate —
 in separate subprocesses (the flag set is part of the .so cache key,
-ops/oracle_native.py::_so_path) and compares the f64 accumulators bitwise.
+utils/native.py shared_object) and compares the f64 accumulators bitwise.
 
 Usage:
   python tools/check_oracle_flags.py "-O3 -march=native" [--spp 32]
@@ -17,6 +17,7 @@ import argparse
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -31,7 +32,7 @@ def render(flags: str, out: str, spp: int) -> float:
     # warm the .so cache outside the timed region (build is ~seconds)
     subprocess.run(
         [sys.executable, "-c",
-         "from hijiki_tpu.ops.oracle_native import load_library; "
+         "from hijiki.ops.oracle_native import load_library; "
          "assert load_library() is not None"],
         env=env, cwd=REPO, check=True,
     )
@@ -50,10 +51,12 @@ def main():
     ap.add_argument("--spp", type=int, default=32)
     args = ap.parse_args()
 
-    ta = render("", "/tmp/oracle_flags_a.npz", args.spp)
-    tb = render(args.candidate, "/tmp/oracle_flags_b.npz", args.spp)
-    a = np.load("/tmp/oracle_flags_a.npz")["acc"]
-    b = np.load("/tmp/oracle_flags_b.npz")["acc"]
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+        ta = render("", fa, args.spp)
+        tb = render(args.candidate, fb, args.spp)
+        a = np.load(fa)["acc"]
+        b = np.load(fb)["acc"]
     # compare BIT patterns, not values: np.array_equal would pass a
     # +0.0 vs -0.0 divergence (a real sign of changed FP codegen)
     same = (a.dtype == b.dtype and a.shape == b.shape

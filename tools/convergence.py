@@ -13,18 +13,19 @@ import numpy as np
 
 
 def main(size=512, spp=256):
-    from hijiki_tpu.render.renderer import RenderConfig, Renderer
-    from hijiki_tpu.scene.compile import compile_scene
-    from hijiki_tpu.scene.obj import load_obj_scene
+    from hijiki.render.renderer import RenderConfig, Renderer
+    from hijiki.scene.cbox_mesh import CBOX_OBJ
+    from hijiki.scene.compile import compile_scene
+    from hijiki.scene.obj import load_obj_scene
 
-    scene = load_obj_scene("/root/reference/scenes/cbox/cbox.obj")
+    scene = load_obj_scene(CBOX_OBJ)
     scene.put_cbox_spheres()
     compiled = compile_scene(scene)
 
     imgs = []
     for seed in (101, 202):
         cfg = RenderConfig(
-            width=size, height=size, spp=spp, seed=seed, driver="mega",
+            width=size, height=size, spp=spp, seed=seed, driver="sync",
             max_bounces=1000,
         )
         r = Renderer(compiled, cfg)
@@ -46,8 +47,6 @@ def main(size=512, spp=256):
                mse_clipped=mse_c, clip=float(lim),
                mean_a=float(a.mean()), mean_b=float(b.mean()))
     print(json.dumps(out))
-    np.save("/tmp/conv_a.npy", a)
-    np.save("/tmp/conv_b.npy", b)
 
 
 if __name__ == "__main__":
